@@ -26,5 +26,5 @@ bench:
 	$(PY) bench.py
 
 clean:
-	rm -f slimfastq_tpu/native/_host.so
+	rm -rf slimfastq_tpu/native/build
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

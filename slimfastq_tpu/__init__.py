@@ -1,6 +1,6 @@
-"""slimfastq_tpu: TPU-native lossless FASTQ codec.
+"""slimfastq_tpu: lossless FASTQ codec for a JAX accelerator (GPU).
 
-A from-scratch JAX/Pallas re-design of the capabilities of
+A from-scratch JAX re-design of the capabilities of
 Infinidat/slimfastq (see SURVEY.md): adaptive context-model range coding of
 FASTQ id/sequence/quality streams, levels 1-4, bit-exact round trip —
 with the serial coder re-derived as a lane-interleaved lockstep kernel and

@@ -2,7 +2,8 @@
 
 Capability parity with slimfastq's CLI (SURVEY.md §2 "Entry / CLI": encode/
 decode mode, compression level 1-4, stdin/stdout mode, force-overwrite,
-version/usage, per-stream stats), wrapping the TPU/JAX runtime.
+version/usage, per-stream stats), running the codec through JAX on the
+accelerator.
 
 Usage:
   sfq [-1|-2|-3|-4] in.fastq [-o out.sfq]        # encode
@@ -18,7 +19,7 @@ import io
 import os
 import sys
 
-from . import __version__
+from . import __version__, compile_cache
 from .api import decode_fastq, encode_fastq
 
 
@@ -33,7 +34,7 @@ def _pick_backend(name: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sfq",
-        description="TPU-native lossless FASTQ codec "
+        description="lossless FASTQ codec on a JAX accelerator "
                     "(slimfastq-class compression)")
     p.add_argument("input", help="input file, or '-' for stdin")
     p.add_argument("-o", "--output",
@@ -91,6 +92,7 @@ def _stats(encoded: bytes, raw_len: int, out=None) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    compile_cache.enable()
     if args.sharded and args.backend != "jax":
         # the sharded path IS the jax mesh path; silently running jax
         # kernels under --backend oracle would defeat backend bisection

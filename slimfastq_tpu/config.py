@@ -2,7 +2,7 @@
 
 Mirrors the capability of slimfastq's level knob (SURVEY.md §2 "Config /
 flags": levels select context-model depth/table sizes in the sequence and
-quality codecs) re-expressed as explicit dataclasses. TPU-side knobs (lanes,
+quality codecs) re-expressed as explicit dataclasses. Device-side knobs (lanes,
 block size) deliberately do NOT affect output bytes except through the
 documented block structure.
 """
@@ -160,9 +160,9 @@ class CodecConfig:
     seq: SeqGeom = field(default_factory=SeqGeom)
     bytes_: ByteGeom = field(default_factory=ByteGeom)
     flags: FlagGeom = field(default_factory=FlagGeom)
-    # TPU/block knobs — affect parallel layout only, not per-lane bit streams
-    # (bigger blocks amortise kernel latency AND give adaptive tables more
-    # data: measured 33 Gsym/s at S=6400 vs 13 Gsym/s at S=2048, W=1024)
+    # device/block knobs — affect parallel layout only, not per-lane bit
+    # streams (bigger blocks amortise kernel latency AND give adaptive
+    # tables more data)
     block_records: int = 1 << 16   # records per independently-decodable block
     lanes: int = 1024              # interleaved lanes for qual/seq streams
     aux_lanes: int = 64            # lanes for small id/length/flag streams
@@ -170,9 +170,8 @@ class CodecConfig:
 
 # Level table: ratio/speed trade-off analogous to slimfastq -1..-4
 # (SURVEY.md §5 "Config / flag system"). Larger level = bigger context
-# tables = better ratio. Levels 1-3 keep every table VMEM-resident
-# (<= ~4 MB) so the hot loop never touches HBM; level 4 trades speed for
-# maximum context depth.
+# tables = better ratio. Levels 1-3 keep every table <= ~4 MB; level 4
+# trades table size (67 MB sequence table) for maximum context depth.
 # Quality geometry per level follows the measured sweep (full previous-two
 # qualities beat quantised-q2 + fine position buckets by ~8%): see
 # BASELINE.md.

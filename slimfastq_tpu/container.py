@@ -1,4 +1,4 @@
-"""Sharded block container — the TPU-native replacement for slimfastq's
+"""Sharded block container — the block-parallel replacement for slimfastq's
 single-file multiplexed "filer" (SURVEY.md §2 "Container"): instead of
 interleaved per-stream pages in one serial file, the container is a header +
 a sequence of independently-decodable record-blocks + a trailing index of

@@ -1,59 +1,102 @@
 """ctypes bindings for the native host library (host.cpp).
 
-Builds _host.so on first import (g++ -O3) and caches it next to the source;
-falls back gracefully (``lib is None``) if no compiler is available, in
-which case callers use the pure-Python reference path.
+Builds the library on first import (g++ -O3 -march=native) into
+``native/build/``, under a name keyed on a hash of the source, the
+compiler flags and the host CPU's model and ISA flags, so a checkout
+carried to another machine never loads a binary built for another CPU
+or from another source. Falls back gracefully (``lib is None``) if no
+compiler is available, in which case callers use the pure-Python
+reference path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "host.cpp")
-_SO = os.path.join(_DIR, "_host.so")
+_BUILD_DIR = os.path.join(_DIR, "build")
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+          "-fopenmp")
 
 lib = None
 
 
-def _build() -> bool:
+def cpu_identity() -> str:
+    """Model name and ISA flags of the host CPU (what -march=native
+    compiles for)."""
     try:
-        if (os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-            return True
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", "-fopenmp", _SRC, "-o", _SO + ".tmp"]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:  # retry without OpenMP (optional dep)
-            r = subprocess.run([c for c in cmd if c != "-fopenmp"],
+        with open("/proc/cpuinfo") as f:
+            text = f.read()
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+    first = text.split("\n\n", 1)[0]
+    keep = [ln for ln in first.splitlines()
+            if ln.split(":", 1)[0].strip() in ("vendor_id", "model name",
+                                               "flags", "Features")]
+    return "\n".join(keep) or platform.machine()
+
+
+def build_key(src: bytes, flags, cpu: str) -> str:
+    """Cache key of a built library: source, flags and CPU identity."""
+    h = hashlib.sha256()
+    for part in (src, "\0".join(flags).encode(), cpu.encode()):
+        h.update(part)
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+def _build(build_dir: str = _BUILD_DIR) -> str | None:
+    """Path of a library built from the current source for this CPU,
+    building it if no such library exists yet; None if the build fails.
+    OpenMP is optional: without it the library builds single-threaded."""
+    try:
+        with open(_SRC, "rb") as f:
+            src = f.read()
+        cpu = cpu_identity()
+        for flags in (_FLAGS, tuple(c for c in _FLAGS if c != "-fopenmp")):
+            so = os.path.join(build_dir,
+                              f"_host-{build_key(src, flags, cpu)}.so")
+            if os.path.exists(so):
+                return so
+            os.makedirs(build_dir, exist_ok=True)
+            # per-process temporary name: parallel test workers may build
+            # at once; the rename is atomic
+            tmp = f"{so}.{os.getpid()}.tmp"
+            r = subprocess.run(["g++", *flags, _SRC, "-o", tmp],
                                capture_output=True, text=True)
-            if r.returncode != 0:
-                return False
-        os.replace(_SO + ".tmp", _SO)
-        return True
+            if r.returncode == 0:
+                os.replace(tmp, so)
+                return so
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return None
     except (OSError, subprocess.SubprocessError):
-        return False
+        return None
 
 
 def _load():
     global lib
-    if not _build():
+    so = _build()
+    if so is None:
         return
     # Bounded OpenMP barrier spin (must be set before libgomp
     # initialises). The pipelined encode/decode runs OpenMP regions from
     # several Python threads — one libgomp team per calling thread — and
     # the default long spin makes an idle team steal cores from the
-    # active one (measured: decode-finish wall time was bimodal 8 vs
-    # 60-80 ms per 64k block inside the 3-stage pipeline; a 20k spin
-    # stabilises it without the sleep/wake latency OMP_WAIT_POLICY=
-    # passive adds to the short hot regions).
+    # active one (on a 4-core host, decode-finish wall time inside the
+    # 3-stage pipeline was bimodal; a 20k spin stabilises it without the
+    # sleep/wake latency OMP_WAIT_POLICY=passive adds to the short hot
+    # regions).
     os.environ.setdefault("GOMP_SPINCOUNT", "20000")
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         lib = None
         return
@@ -118,9 +161,6 @@ def _load():
     lib.minmax_ranges.argtypes = [p8, pi64, pi64, i64, pi64, pi64]
     lib.scan_bad.restype = i64
     lib.scan_bad.argtypes = [p8, pi64, pi64, i64, pi32]
-    lib.compact_lanes.restype = i64
-    lib.compact_lanes.argtypes = [p8, pi32, pu32, pi64, i64, i64, i64, i64,
-                                  p8, i64, pi64]
     lib.flush_append.restype = None
     lib.flush_append.argtypes = [p8, i64, i64, pi64, pu32, pi64, p8, i64]
     lib.seqx_encode.restype = i64
@@ -185,9 +225,9 @@ def has_matcher() -> bool:
 class pipeline_omp_cap:
     """Context manager: cap OpenMP team size while the 3-stage block
     pipeline runs (2-3 Python threads each spawn their own libgomp
-    team; full-width teams oversubscribe the cores and thrash —
-    measured in tools/profile_wall.py, decode wall -35% and far lower
-    variance with teams of cores/2 on a 4-core host). Restores the
+    team; full-width teams oversubscribe the cores and thrash — on a
+    4-core host, teams of cores/2 cut decode wall time and its
+    variance). Restores the
     previous width on exit so isolated stage calls keep full teams.
     SFQ_PIPE_OMP_THREADS overrides the cap (0 = leave unchanged)."""
 
@@ -318,7 +358,7 @@ def ids_encode(data, idx: dict, n: int, wa: int, prev_step: int = 1):
         + 64
     for attempt in range(2):
         # np.empty: C++ writes sizes[w] bytes per row and only those are
-        # sliced out below (zeroing 8MB arenas measured ~3ms/block)
+        # sliced out below, so zeroing the 8 MB arenas would be wasted
         delta = np.empty(wa * dstride, dtype=np.uint8)
         exc = np.empty(wa * xstride, dtype=np.uint8)
         dsizes = np.zeros(wa, dtype=np.int64)
@@ -356,8 +396,8 @@ def ids_decode(n: int, wa: int, flags: np.ndarray,
         arena_cap = total_exc + scale * 64 * n + (1024 + wa * 64) * scale
         plus_cap = total_exc + scale * (64 + 2) * n + (1024 + wa * 64) \
             * scale
-        # np.empty: only [off, off+len) ranges are ever read back, and
-        # zeroing ~9 MB of arena measured ~2-3 ms/block
+        # np.empty: only [off, off+len) ranges are ever read back, so
+        # zeroing ~9 MB of arena per block would be wasted
         id_arena = np.empty(arena_cap, dtype=np.uint8)
         plus_arena = np.empty(plus_cap, dtype=np.uint8)
         out_off = np.empty(max(n, 1), dtype=np.int64)
@@ -388,8 +428,8 @@ def pack_lanes(src: np.ndarray, offs: np.ndarray, lens: np.ndarray,
                bias: int = 0, dtype=np.uint32):
     """Returns (mat [S, W] `dtype`, lane_totals [W], n_bad, rec_bad [n]).
 
-    OpenMP record-parallel fill + blocked C++ transpose (the NumPy
-    `ascontiguousarray(matT.T)` copy measured ~13 ms per 26 MB matrix).
+    OpenMP record-parallel fill + blocked C++ transpose (faster than the
+    NumPy `ascontiguousarray(matT.T)` copy).
     dtype=np.uint8 halves twice the memory traffic (all stream symbols
     fit in a byte); the device kernels upcast once on entry."""
     n = len(offs)
@@ -415,8 +455,7 @@ def pack_lanes(src: np.ndarray, offs: np.ndarray, lens: np.ndarray,
 
 def transpose_mat(mat: np.ndarray) -> np.ndarray:
     """[A, B] uint32/uint8 -> contiguous [B, A] via the blocked C++
-    transpose (NumPy ascontiguousarray(mat.T) measured ~13 ms per 26 MB
-    matrix)."""
+    transpose (faster than NumPy's ascontiguousarray(mat.T))."""
     A, B = mat.shape
     if mat.dtype == np.uint8:
         out = np.empty((B, A), dtype=np.uint8)
@@ -452,26 +491,6 @@ def unpack_lanes(mat: np.ndarray, lens: np.ndarray, W: int,
     return out
 
 
-def compact_lanes(ebufs: np.ndarray, eptrs: np.ndarray, low: np.ndarray,
-                  counts: np.ndarray, CB: int, flush_bytes: int):
-    """Dense per-chunk emission buffers -> (payload [W, maxlen], lens[W])."""
-    NC, W = eptrs.shape
-    eptrs = np.ascontiguousarray(eptrs, dtype=np.int32)
-    counts = np.ascontiguousarray(counts, dtype=np.int64)
-    totals = eptrs.sum(axis=0, dtype=np.int64)
-    act = counts > 0
-    maxlen = int((totals[act].max() if act.any() else 0) + flush_bytes)
-    payload = np.zeros((W, max(maxlen, 1)), dtype=np.uint8)
-    lens = np.zeros(W, dtype=np.int64)
-    r = lib.compact_lanes(_p8(np.ascontiguousarray(ebufs)), _pi32(eptrs),
-                          _pu32(np.ascontiguousarray(low, dtype=np.uint32)),
-                          _pi64(counts), NC, W, CB, flush_bytes,
-                          _p8(payload), max(maxlen, 1), _pi64(lens))
-    if r < 0:
-        raise RuntimeError("compact_lanes overflow")
-    return payload[:, :maxlen], lens
-
-
 def seqx_encode(src: np.ndarray, offs: np.ndarray, lens: np.ndarray,
                 wa: int, rec_bad: np.ndarray | None = None,
                 nbad: int | None = None) -> list[np.ndarray]:
@@ -480,7 +499,7 @@ def seqx_encode(src: np.ndarray, offs: np.ndarray, lens: np.ndarray,
     are skipped without rescanning their bytes. nbad (total exception
     bases, also from pack_lanes) tightens the arena bound: the blanket
     worst-case arena is ~13 bytes/sequence-byte (86 MB at 64k records),
-    whose page-zeroing alone cost ~15 ms/block."""
+    whose page-zeroing alone is a large per-block cost."""
     n = len(offs)
     total = int(np.asarray(lens).sum())
     # Strides must bound ONE lane, since a skewed input can concentrate
@@ -517,8 +536,8 @@ def seqx_apply(lane_bufs: list[np.ndarray], fmt: int, n: int,
                out: np.ndarray) -> None:
     """Parse the aux-lane SEQX exception streams and patch the exception
     chars into the record-major sequence buffer in place (decode twin of
-    seqx_encode; replaces the Python parse_seqx_lane loop, ~10 ms/64k
-    block). Raises ValueError on a malformed stream or out-of-bounds
+    seqx_encode; replaces the slower Python parse_seqx_lane loop).
+    Raises ValueError on a malformed stream or out-of-bounds
     patch position."""
     bufs = [np.ascontiguousarray(b, dtype=np.uint8) for b in lane_bufs]
     sizes = np.array([len(b) for b in bufs], dtype=np.int64)
@@ -532,7 +551,7 @@ def seqx_apply(lane_bufs: list[np.ndarray], fmt: int, n: int,
 
 def scan_bad(src: np.ndarray, offs: np.ndarray, lens: np.ndarray):
     """Per-record non-ACGT base counts + total (read-only census for the
-    device-pack path; the pack itself happens on the TPU)."""
+    device-pack path; the pack itself happens on the device)."""
     n = len(offs)
     rec_bad = np.zeros(max(n, 1), dtype=np.int32)
     nbad = lib.scan_bad(_p8(src), _pi64(np.ascontiguousarray(offs)),
@@ -554,8 +573,8 @@ def fastq_assemble(n: int, id_arena, id_off, id_len, seq_buf, seq_off,
                    qual_buf, lengths, plus_arena, plus_off,
                    plus_len, sx_lanes=None, fmt: int = 3) -> memoryview:
     """Returns a zero-copy memoryview of the assembled FASTQ bytes (the
-    earlier np.zeros + .tobytes() pattern cost ~19 ms per 16 MB block:
-    a full zeroing pass plus a full copy).
+    earlier np.zeros + .tobytes() pattern paid a full zeroing pass plus
+    a full copy per block).
 
     sx_lanes: optional SEQX exception lane streams — patched into the
     ASSEMBLED output's seq fields (offsets are closed-form from the
@@ -582,8 +601,8 @@ def fastq_assemble(n: int, id_arena, id_off, id_len, seq_buf, seq_off,
 
 
 def flags_reorder(grouped: np.ndarray, n: int, wa: int) -> np.ndarray:
-    """Lane-grouped flag triples -> record-order [3n] (C++ gather; the
-    NumPy fancy-index scatter cost ~0.9 ms per 64k block)."""
+    """Lane-grouped flag triples -> record-order [3n] (C++ gather, in
+    place of a NumPy fancy-index scatter)."""
     out = np.empty(3 * max(n, 1), dtype=np.uint8)
     lib.flags_reorder(_p8(np.ascontiguousarray(grouped)), n, wa, _p8(out))
     return out[: 3 * n]
@@ -595,8 +614,7 @@ def match_find_arrays(data: np.ndarray, seq_off: np.ndarray,
     find_matches; equality pinned by tests/test_match.py). Returns
     (ref, orient, v, score) int64/uint8 arrays with ref < 0 for
     unmatched reads — the production-path representation (the per-read
-    tuple list of match_find cost ~50 ms/64k block in Python object
-    churn; measured round 5)."""
+    tuple list of match_find costs Python object churn per read)."""
     n = len(seq_off)
     ref = np.empty(n, dtype=np.int64)
     orient = np.empty(n, dtype=np.uint8)
@@ -644,7 +662,7 @@ def match_mflag(recs: np.ndarray, los: np.ndarray, his: np.ndarray,
                 lengths: np.ndarray, W: int, S: int) -> np.ndarray:
     """[S, W] match-span flag matrix from span arrays — fused C++
     replacement for pack_lanes(span_flags_flat(...)) (bit-identical;
-    the numpy chain cost ~60-80 ms/64k block inside the pipeline)."""
+    the NumPy chain was slow under the pipeline's memory contention)."""
     n = len(lengths)
     if S == 0:
         return np.zeros((0, W), dtype=np.uint8)

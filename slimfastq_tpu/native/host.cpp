@@ -1,7 +1,7 @@
-// Native host-side components of the TPU FASTQ codec.
+// Native host-side components of the FASTQ codec.
 //
 // The reference (Infinidat/slimfastq) is a single C++ binary; in this
-// TPU-native re-design the *device* does the entropy coding while the
+// re-design the accelerator does the entropy coding while the
 // host owns the string-shaped work (SURVEY.md §3.5). This library is the
 // production host path: FASTQ indexing/validation, tokenized read-ID
 // delta modeling (bit-format-identical to models/readid.py), varint
@@ -29,7 +29,7 @@
 // ---------------------------------------------------------------------------
 // newline scan helpers: count + fill positions, SIMD where available.
 // memchr-per-line costs a call per ~25-100 byte line; the movemask form
-// processes 32 bytes per iteration (measured 5.1 -> ~1.3 ms per 15.6 MB).
+// processes 32 bytes per iteration.
 // ---------------------------------------------------------------------------
 static int64_t count_nl(const uint8_t* p, int64_t len) {
     int64_t cnt = 0;
@@ -72,7 +72,6 @@ static int64_t fill_nl(const uint8_t* p, int64_t len, int64_t base,
 // CRC32 (IEEE reflected, zlib-compatible): slice-by-8 tables + OpenMP
 // chunking with a GF(2) combine. Bit-identical to zlib.crc32 — pinned by
 // tests/test_native.py — so container CRCs are NOT format-affected.
-// Measured ~0.4 GB/s via Python zlib on this host vs ~3 GB/s/core here.
 // ---------------------------------------------------------------------------
 static uint32_t crc_tab[8][256];
 static bool crc_init_done = false;
@@ -192,10 +191,9 @@ uint32_t crc32_buf(const uint8_t* p, int64_t n) {
 // OpenMP team-size control for the pipelined API paths: the 3-stage
 // block pipeline runs OpenMP regions from 2-3 Python threads at once
 // (prep/finish pool + main); full-width teams then oversubscribe the
-// cores and thrash at barriers (measured: decode wall 82-146 ms per 4
-// blocks at 4 threads on 4 cores vs 72-78 ms at 2 — tools/
-// profile_wall.py). api.py caps teams to ~cores/2 around the pipeline
-// and restores after.
+// cores and thrash at barriers (on a 4-core host, teams of 2 beat teams
+// of 4 in decode wall time and its variance). api.py caps teams to
+// ~cores/2 around the pipeline and restores after.
 void set_omp_threads(int64_t n) {
 #ifdef _OPENMP
     if (n > 0) omp_set_num_threads((int)n);
@@ -349,7 +347,7 @@ int64_t lens_encode(const int64_t* lengths, int64_t n, int64_t wa,
 
 // Ragged per-lane payload <-> padded [W, maxlen] matrix (container
 // framing). One parallel memcpy per lane — replaces the NumPy
-// boolean-mask gather/scatter, which cost ~4 ms per 3 MB payload.
+// boolean-mask gather/scatter.
 int64_t ragged_pack_rows(const uint8_t* mat, int64_t W, int64_t maxlen,
                          const int64_t* lens, uint8_t* out) {
     std::vector<int64_t> off(W + 1, 0);
@@ -363,7 +361,7 @@ int64_t ragged_pack_rows(const uint8_t* mat, int64_t W, int64_t maxlen,
 
 // Compacted per-lane payload + per-lane totals -> final padded payload
 // with the 4 coder-flush bytes appended per active lane (twin of
-// streams_jax._flush_append; the NumPy mask path cost ~7 ms/block).
+// streams_jax._flush_append's NumPy mask path).
 void flush_append(const uint8_t* pay, int64_t W, int64_t paylen,
                   const int64_t* totals, const uint32_t* low,
                   const int64_t* counts, uint8_t* out, int64_t maxlen) {
@@ -509,8 +507,8 @@ static int64_t common_prefix(const uint8_t* a, const uint8_t* b,
 // -1 if it cannot match
 static int64_t render(const uint8_t* prev_tok, int64_t prev_len,
                       int64_t value, uint8_t* out, int64_t cap) {
-    // hand-rolled decimal render (snprintf here measured ~25 ms per 64k
-    // records). Semantics identical to "%0*lld"/"%lld": zero-pad to the
+    // hand-rolled decimal render (snprintf is slow per record).
+    // Semantics identical to "%0*lld"/"%lld": zero-pad to the
     // previous token's width when it had a leading zero.
     char tmp[32];
     bool neg = value < 0;
@@ -1123,8 +1121,7 @@ int64_t ids_decode(int64_t n, int64_t wa, int64_t prev_step,
 // ---------------------------------------------------------------------------
 // Lane-grouped flag triples -> record order: record r (lane w = r % wa,
 // chain position i = r / wa) reads grouped row base[w] + i. One parallel
-// gather pass (the NumPy fancy-index scatter this replaces cost ~0.9 ms
-// at 64k records).
+// gather pass (replaces a NumPy fancy-index scatter).
 void flags_reorder(const uint8_t* grouped, int64_t n, int64_t wa,
                    uint8_t* out) {
     std::vector<int64_t> base(wa + 1, 0);
@@ -1237,44 +1234,6 @@ int64_t unpack_lanes(const uint32_t* mat /*[W*S]*/, const int64_t* lens,
 
 // min/max over all record ranges in one pass (for quality biasing)
 // ---------------------------------------------------------------------------
-// Emission compaction: dense per-chunk device buffers -> per-lane payload
-// rows + flush tail. Replaces the NumPy boolean-take compactor (measured
-// 0.3 s/stream at NC=800, W=1024 on CPU; this is a straight memcpy pass).
-// ebufs: [NC, W*CB] uint8; eptrs: [NC, W] int32 (valid bytes per chunk);
-// low: uint32[W] coder state for the flush bytes; counts: int64[W]
-// (lanes with counts<=0 emit nothing). payload out: [W, maxlen];
-// lens out: int64[W]. Returns 0, or -1 if maxlen is too small.
-// ---------------------------------------------------------------------------
-int64_t compact_lanes(const uint8_t* ebufs, const int32_t* eptrs,
-                      const uint32_t* low, const int64_t* counts,
-                      int64_t NC, int64_t W, int64_t CB,
-                      int64_t flush_bytes,
-                      uint8_t* payload, int64_t maxlen, int64_t* lens) {
-    int overflow = 0;   // lanes write disjoint payload rows -> parallel
-#pragma omp parallel for schedule(static) reduction(|:overflow)
-    for (int64_t w = 0; w < W; w++) {
-        if (counts[w] <= 0) { lens[w] = 0; continue; }
-        uint8_t* dst = payload + w * maxlen;
-        int64_t off = 0;
-        for (int64_t c = 0; c < NC; c++) {
-            int32_t nb = eptrs[c * W + w];
-            if (nb > 0) {
-                if (off + nb > maxlen) { overflow = 1; break; }
-                memcpy(dst + off, ebufs + c * (W * CB) + w * CB,
-                       (size_t)nb);
-                off += nb;
-            }
-        }
-        if (off + flush_bytes > maxlen) { overflow = 1; continue; }
-        uint32_t lw = low[w];
-        for (int64_t j = 0; j < flush_bytes; j++)
-            dst[off + j] = (uint8_t)(lw >> (24 - 8 * j));
-        lens[w] = off + flush_bytes;
-    }
-    return overflow ? -1 : 0;
-}
-
-// ---------------------------------------------------------------------------
 // pack_lanes2: OpenMP record-parallel lane packing. Writes the [W, S]
 // transposed matrix (contiguous per record) + per-record non-ACGT flags;
 // pair with transpose_u32 for the [S, W] kernel layout. Per-record row
@@ -1333,8 +1292,8 @@ void transpose_u32(const uint32_t* in, uint32_t* out, int64_t W,
 
 // uint8 twins of pack_lanes2 / transpose_u32 / unpack_lanes. Every stream
 // symbol fits in a byte (tree depth <= 8), so the host<->device boundary
-// matrices are uint8: 4x less host memory traffic and 4x smaller PCIe /
-// tunnel transfers than the uint32 layout (the device upcasts once,
+// matrices are uint8: 4x less host memory traffic and 4x smaller PCIe
+// transfers than the uint32 layout (the device upcasts once,
 // whole-array, outside the scan — KERNEL_NOTES §5).
 int64_t pack_lanes2_u8(const uint8_t* src, const int64_t* offs,
                        const int64_t* lens, int64_t n, int64_t W, int64_t S,
@@ -1527,7 +1486,7 @@ int64_t seqx_apply(const uint8_t* const* bufs, const int64_t* sizes,
 
 // Non-ACGT census only (no packing): per-record exception-base counts +
 // total. Pure read pass for the device-pack path, where the layout
-// transform itself happens on the TPU and the host only needs to know
+// transform itself happens on the device and the host only needs to know
 // which records feed the SEQX exception stream.
 int64_t scan_bad(const uint8_t* src, const int64_t* offs,
                  const int64_t* lens, int64_t n, int32_t* rec_bad) {
@@ -1793,8 +1752,8 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                    int64_t* out_ref, uint8_t* out_orient, int64_t* out_v,
                    int64_t* out_score) {
     m_b2c0_init();
-    // SFQ_MATCH_STATS=1: phase wall-time breakdown to stderr (probe tool
-    // for the round-5 "put the matcher on the TPU or make it cheap" work)
+    // SFQ_MATCH_STATS=1: phase wall-time breakdown to stderr (read by
+    // tools/probe_match_cost.py)
     const bool mstats = std::getenv("SFQ_MATCH_STATS") != nullptr;
     double t_arena = 0, t_sample = 0, t_query = 0, t_insert = 0;
     int64_t n_probe = 0, n_cand = 0, n_scored = 0;
@@ -2144,9 +2103,9 @@ int64_t match_encode_lanes(const int64_t* refs, const uint8_t* orients,
 
 // Build the [S, W] match-span flag matrix (seq_mflag) directly from
 // match spans — the fused replacement for the numpy
-// span-diff/cumsum/pack_lanes chain, which cost ~60-80 ms per 64k
-// block inside the pipeline (np.add.at + a 6.5M-element cumsum + a
-// full lane re-pack, three times per L4 block). Writes a [W, S]
+// span-diff/cumsum/pack_lanes chain (np.add.at + a 6.5M-element cumsum
+// + a full lane re-pack, three times per L4 block), which was slow
+// inside the pipeline. Writes a [W, S]
 // row-major temp (each match's span is contiguous per lane) that the
 // caller transposes with transpose_mat — bit-identical to
 // pack_lanes(span_flags_flat(...)). Lane layout: record r -> lane

@@ -1,19 +1,17 @@
 """Device-side lane pack/unpack: raw FASTQ bytes <-> [Sp, W] symbol
 matrices, as whole-array XLA gather/scatter kernels.
 
-TPU-first rationale: the bulk layout transform that turns record-major
+Rationale: the bulk layout transform that turns record-major
 sequence/quality bytes into lane-major symbol matrices is a pure gather
-(encode) / scatter (decode). It belongs on the device at HBM bandwidth,
-not on the host CPU where it was the largest encode-prep cost
-(~7 ms per 6.5 MB matrix per stream per 64k-record block, measured).
+(encode) / scatter (decode). It belongs on the device at device-memory
+bandwidth, not on the host CPU where it was the largest encode-prep cost.
 The reference packs on the host because its coder runs there
 (SURVEY.md §2 sequence/quality codecs, `seqs.cpp`/`quals.cpp`
-§unverified); here the coder is on the TPU, so the layout transform
+§unverified); here the coder is on the device, so the layout transform
 moves with it and the host ships only raw bytes + offset arrays.
 
 Index math (all on device, O(Sp*W) whole-array ops — NOT inside the
-coder scan, so none of docs/KERNEL_NOTES.md §2's in-loop gather cliffs
-apply):
+coder scan, docs/KERNEL_NOTES.md §4):
 
   record r -> lane w = r % W, ordinal j = r // W    (frozen format rule)
   ll[j, w]   = record length          (reshape of the lengths array)

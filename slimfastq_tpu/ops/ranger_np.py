@@ -1,10 +1,10 @@
 """Lane-interleaved binary range coder — NumPy oracle (the bit-format spec).
 
 This module is the *normative specification* of the compressed bit format.
-Every device implementation (JAX in ``streams_jax.py``, later Pallas) must
+Every device implementation (JAX in ``streams_jax.py``) must
 produce byte-identical output to this oracle.
 
-Design (re-derived TPU-first from the capabilities of Infinidat/slimfastq's
+Design (re-derived as an array program from the capabilities of Infinidat/slimfastq's
 ``power_ranger.hpp`` — see SURVEY.md §2; the reference mount was empty, so no
 file:line citations are possible, per SURVEY.md §0):
 
@@ -15,7 +15,7 @@ file:line citations are possible, per SURVEY.md §0):
 * **Binary decomposition**: every K-symbol alphabet is coded through a
   balanced binary tree of K-1 adaptive node probabilities (12-bit), so the
   hot loop needs **no integer division** and no cumulative-frequency scans —
-  this is what makes it map onto the TPU VPU.
+  this is what makes it map onto wide vector hardware.
 * **W interleaved lanes**: the inherently serial coding loop becomes W
   independent streams advanced in lockstep (PAPERS.md, interleaved entropy
   coders). Each lane owns a disjoint subset of the records of a block.

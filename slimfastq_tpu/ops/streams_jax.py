@@ -4,11 +4,9 @@ Byte-identical to the NumPy oracle (``streams_np``) — the equivalence suite
 in tests/test_jax_equivalence.py is the gate. All coder state is
 uint32/int32; no float anywhere (SURVEY.md §7 hard-part (a)).
 
-Performance design (measured on TPU v5e):
-  * Random access is fast only when XLA keeps the data VMEM-resident:
-    the adaptive table (levels 1-3 fit in a few MB), coder state and, on
-    decode, the word-packed payload are all loop-carried values; all
-    indexing is flat 1-D.
+Design:
+  * The adaptive table, the coder state and, on decode, the word-packed
+    payload are loop-carried values; all indexing is flat 1-D.
   * The pad-coded lockstep format (ranger_np docstring) removes every
     per-lane mask from the hot loop: padded steps code through the pinned
     sacrificial context row, so the kernel is a pure unmasked coder.
@@ -17,20 +15,13 @@ Performance design (measured on TPU v5e):
     the tree path of a known symbol is node_j = (1 << j) | (sym >> (d-j))),
     then runs chunks of K symbol-steps, emitting renorm bytes into a small
     per-chunk buffer sized to the hard worst case (3 bytes/bit-step) —
-    dense scan outputs, no HBM scatter, no overflow path. The host compacts
-    chunks with one vectorised boolean take.
-  * WARNING — compile cliff: the Mosaic/XLA TPU backend compiles this exact
-    program shape to a fast executable (~0.1 us/symbol-step at W=512);
-    semantically equivalent rewrites (e.g. `bits[i] != 0` instead of
-    `bits[i] == 1`, nested scan-output tuples) have been observed to
-    compile 100-300x slower AND run ~1000x slower. Keep the kernel bodies
-    in this statement order unless you re-benchmark on TPU.
+    dense scan outputs, no scatter into device memory, no overflow path.
+    The chunks are then compacted into per-lane byte streams.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -296,10 +287,9 @@ def _build_schedule_ll(kind: str, geom, Sp: int, S: int, W: int, Rpl: int,
 
 @functools.lru_cache(maxsize=256)
 def _build_encode(kind: str, geom, Sp: int, W: int, hard: bool):
-    # NOTE: keep this function in the exact proto shape — see module
-    # docstring "compile cliff". The `warm` conditionals below are
-    # Python-level: a geometry without the v4 visit-count warm-up traces
-    # to the IDENTICAL program as before.
+    # The `warm` conditionals below are Python-level: a geometry without
+    # the v4 visit-count warm-up traces to a program without the visit
+    # table.
     depth, rate = geom.depth, geom.rate
     rate_lo = getattr(geom, "rate_lo", 0)
     warm = 0 < rate_lo < rate
@@ -409,39 +399,6 @@ def _build_encode(kind: str, geom, Sp: int, W: int, hard: bool):
     return run
 
 
-def _compact_host(ebufs, eptrs, low, counts, CB):
-    """Host compaction: dense chunk buffers -> per-lane byte streams, then
-    the 4 flush bytes; lanes with zero symbols contribute nothing.
-
-    Fast path: native/host.cpp compact_lanes (one memcpy pass; the NumPy
-    boolean-take fallback below measured 0.3 s/stream at NC=800, W=1024)."""
-    from .. import native
-    if native.available():
-        return native.compact_lanes(ebufs, eptrs, low, counts, CB,
-                                    R.FLUSH_BYTES)
-    NC, W = eptrs.shape
-    bufs = ebufs.reshape(NC, W, CB).transpose(1, 0, 2)
-    ptrs = eptrs.T  # [W, NC]
-    mask = np.arange(CB)[None, None, :] < ptrs[:, :, None]
-    flat = np.ascontiguousarray(bufs)[mask]
-    per_lane = mask.sum(axis=(1, 2))
-    act = np.asarray(counts) > 0
-    lens = np.where(act, per_lane + R.FLUSH_BYTES, 0)
-    maxlen = int(lens.max()) if lens.size else 0
-    payload = np.zeros((W, maxlen), dtype=np.uint8)
-    off = 0
-    lowh = np.asarray(low).astype(np.uint64)
-    for w in range(W):
-        n = int(per_lane[w])
-        if act[w]:
-            payload[w, :n] = flat[off: off + n]
-            lw = int(lowh[w])
-            for j in range(R.FLUSH_BYTES):
-                payload[w, n + j] = (lw >> (24 - 8 * j)) & 0xFF
-        off += n
-    return payload, lens.astype(np.int64)
-
-
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -452,8 +409,7 @@ def _build_decode(kind: str, geom, Sp: int, W: int, Lw: int,
     """Lw: payload words (uint32) per lane. with_mflag (seq, format v5):
     the kernel takes an extra chunked [NC, K, W] match-span flag input
     and selects the match-context family at flagged steps — a separate
-    cache entry, so non-match streams keep the exact historical program
-    shape (compile-cliff rule)."""
+    cache entry, so non-match streams compile without the flag input."""
     depth, rate = geom.depth, geom.rate
     rate_lo = getattr(geom, "rate_lo", 0)
     warm = 0 < rate_lo < rate   # v4 visit-count warm-up (see encode)
@@ -467,8 +423,7 @@ def _build_decode(kind: str, geom, Sp: int, W: int, Lw: int,
     @jax.jit
     def run(paywords, lens, acts, poss, resets, mflags=None):
         # acts/poss/resets: [NC, K, W]. paywords/lens travel in the scan
-        # carry: values gathered inside the hot loop MUST be loop-carried so
-        # XLA keeps them VMEM-resident (see module docstring).
+        # carry with the table and coder state.
         table = jnp.full(tsize, R.PROB_INIT, I32)
         table = table.at[sac_base:].set(I32(PROB_MAX))
         woff = jnp.asarray(word_off_np)
@@ -666,60 +621,28 @@ def encode_stream(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
         return np.zeros((W, 0), dtype=np.uint8), np.zeros(W, dtype=np.int64)
     from ..utils.stats import trace
     sched = _build_schedule(kind, geom, Sp, W, with_mflag=mflag is not None)
-    with trace(f"sfq.encode.{kind}.schedule"):
+    with trace(f"sfq.encode.{kind}.schedule") as span:
         args = (jnp.asarray(_pad2(syms, Sp, W)),
                 jnp.asarray(_pad2(pos, Sp, W)),
                 jnp.asarray(_pad2(reset, Sp, W)),
                 jnp.asarray(counts.astype(np.int32)))
         if mflag is not None:
             args = args + (jnp.asarray(_pad2(mflag, Sp, W)),)
-        idx_c, bit_c = sched(*args)
+        idx_c, bit_c = span.wait_for(sched(*args))
     for hard in (False, True):
         run = _build_encode(kind, geom, Sp, W, hard)
-        with trace(f"sfq.encode.{kind}.coder"):
-            ebufs, eptrs, low, emax = run(idx_c, bit_c)
-        CB = _chunk_bytes(geom.depth, hard)
-        if int(emax) <= CB:
-            return _compact_host(np.asarray(ebufs), np.asarray(eptrs),
-                                 np.asarray(low), counts, CB)
+        with trace(f"sfq.encode.{kind}.coder") as span:
+            ebufs, eptrs, low, emax = span.wait_for(run(idx_c, bit_c))
+        if int(emax) <= _chunk_bytes(geom.depth, hard):
+            return _compact(ebufs, eptrs, low, counts)
     raise AssertionError("encode chunk overflow even with hard buffers")
-
-
-# Device compaction: concatenate emission chunks on device so only ~the
-# compressed payload crosses PCIe, instead of shipping dense chunk
-# buffers to the host compactor. Default ON for the TPU backend
-# (SFQ_DEVICE_COMPACT=0 opts out); off-TPU the host compactor is used
-# (the paths are byte-identical — tested and asserted by every bench
-# run). Two implementations: "xla" (ops/compact_xla — whole-array
-# scatter/cummax/gather, the round-3 default) and "pallas"
-# (ops/compact_pallas — the round-2 DMA kernel, 4.6-13 ms/block,
-# kept for comparison via SFQ_COMPACT_IMPL=pallas).
-_DEVICE_COMPACT = bool(int(os.environ.get("SFQ_DEVICE_COMPACT", "1")))
-_COMPACT_IMPL = os.environ.get("SFQ_COMPACT_IMPL", "xla")
-
-
-def compact_device_impl(ebufs, eptrs, Bmax: int):
-    """Selected device compactor -> (payload_u8_dev [W, Bmax], totals_dev).
-    Shared by _compact_device_path and bench.py's kernel timing."""
-    if _COMPACT_IMPL == "pallas":
-        from . import compact_pallas
-        pay_i32, totals = compact_pallas.compact_device_v2(ebufs, eptrs,
-                                                           Bmax)
-        return pay_i32.astype(jnp.uint8), totals
-    from . import compact_xla
-    return compact_xla.compact_device(ebufs, eptrs, Bmax)
-
-
-def _use_device_compact(W: int) -> bool:
-    return (_DEVICE_COMPACT and W % 8 == 0
-            and jax.default_backend() == "tpu")
 
 
 def _flush_append(pay: np.ndarray, totals_np: np.ndarray, low, counts):
     """Compacted per-lane payload [W, >=max total] + per-lane byte totals
     -> final (payload [W, maxlen], lens) with the FLUSH_BYTES coder-tail
     bytes appended. C++ when available (the vectorised-NumPy mask path
-    below cost ~7 ms/block at W=1024)."""
+    below is the fallback)."""
     counts = np.asarray(counts)
     W = len(counts)
     act = counts > 0
@@ -745,18 +668,23 @@ def _flush_append(pay: np.ndarray, totals_np: np.ndarray, low, counts):
     return payload, lens
 
 
-def _compact_device_path(ebufs, eptrs, low, counts, CB):
-    """On-device compaction + host flush-byte append. Byte-identical to
-    _compact_host (tested). The only device->host readbacks are the [W]
-    per-lane totals (4 KB at W=1024) and the compacted payload itself."""
-    totals_np = np.asarray(jnp.sum(eptrs, axis=0)).astype(np.int64)
-    Bmax = int(totals_np.max()) if totals_np.size else 0
-    # quantise the (data-dependent) payload bound to 4 KB buckets so the
-    # kernel compiles once per bucket, not once per block
-    Bmax = ((Bmax + R.FLUSH_BYTES + 4095) // 4096) * 4096 + 128
-    pay_dev, _ = compact_device_impl(ebufs, eptrs, Bmax)
-    pay = np.asarray(pay_dev)
-    return _flush_append(pay, totals_np, np.asarray(low), counts)
+def _compact(ebufs, eptrs, low, counts):
+    """Coder emission chunks (device arrays from _build_encode) -> final
+    (payload [W, maxlen], lens): the chunks are compacted on the device
+    (ops/compact_xla), so only the per-lane totals (4 KB at W=1024) and
+    about the compressed payload cross to the host, which appends the
+    coder's flush bytes."""
+    from ..utils.stats import trace
+    from . import compact_xla
+    with trace("sfq.encode.compact"):
+        totals_np = np.asarray(jnp.sum(eptrs, axis=0)).astype(np.int64)
+        Bmax = int(totals_np.max()) if totals_np.size else 0
+        # quantise the (data-dependent) payload bound to 4 KB buckets so
+        # the kernel compiles once per bucket, not once per block
+        Bmax = ((Bmax + R.FLUSH_BYTES + 4095) // 4096) * 4096 + 128
+        pay_dev, _ = compact_xla.compact_device(ebufs, eptrs, Bmax)
+        return _flush_append(np.asarray(pay_dev), totals_np,
+                             np.asarray(low), counts)
 
 
 def encode_stream_ll(kind: str, geom, syms: np.ndarray,
@@ -776,22 +704,18 @@ def encode_stream_ll(kind: str, geom, syms: np.ndarray,
     from ..utils.stats import trace
     sched = _build_schedule_ll(kind, geom, Sp, S, W, Rpl,
                                with_mflag=mflag is not None)
-    with trace(f"sfq.encode.{kind}.schedule"):
+    with trace(f"sfq.encode.{kind}.schedule") as span:
         args = (jnp.asarray(_pad2(syms, Sp, W)), jnp.asarray(ll),
                 jnp.asarray(counts.astype(np.int32)))
         if mflag is not None:
             args = args + (jnp.asarray(_pad2(mflag, Sp, W)),)
-        idx_c, bit_c = sched(*args)
+        idx_c, bit_c = span.wait_for(sched(*args))
     for hard in (False, True):
         run = _build_encode(kind, geom, Sp, W, hard)
-        with trace(f"sfq.encode.{kind}.coder"):
-            ebufs, eptrs, low, emax = run(idx_c, bit_c)
-        CB = _chunk_bytes(geom.depth, hard)
-        if int(emax) <= CB:
-            if _use_device_compact(W):
-                return _compact_device_path(ebufs, eptrs, low, counts, CB)
-            return _compact_host(np.asarray(ebufs), np.asarray(eptrs),
-                                 np.asarray(low), counts, CB)
+        with trace(f"sfq.encode.{kind}.coder") as span:
+            ebufs, eptrs, low, emax = span.wait_for(run(idx_c, bit_c))
+        if int(emax) <= _chunk_bytes(geom.depth, hard):
+            return _compact(ebufs, eptrs, low, counts)
     raise AssertionError("encode chunk overflow even with hard buffers")
 
 
@@ -820,12 +744,12 @@ def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
     from ..utils.stats import trace
     run = _build_decode_ll(kind, geom, Sp, S, W, Rpl, Lw,
                            with_mflag=mflag is not None)
-    with trace(f"sfq.decode.{kind}.coder"):
+    with trace(f"sfq.decode.{kind}.coder") as span:
         args = (jnp.asarray(words), jnp.asarray(lens.astype(np.int32)),
                 jnp.asarray(ll), jnp.asarray(counts.astype(np.int32)))
         if mflag is not None:
             args = args + (jnp.asarray(np.ascontiguousarray(mflag)),)
-        syms = run(*args)
+        syms = span.wait_for(run(*args))
     out = np.asarray(syms)[:S]
     mask = np.arange(S)[:, None] < counts[None, :]
     return np.where(mask, out, np.uint8(0))
@@ -859,13 +783,13 @@ def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
     from ..utils.stats import trace
     run = _build_decode(kind, geom, Sp, W, Lw,
                         with_mflag=mflag is not None)
-    with trace(f"sfq.decode.{kind}.coder"):
+    with trace(f"sfq.decode.{kind}.coder") as span:
         args = (jnp.asarray(words), jnp.asarray(lens.astype(np.int32)),
                 jnp.asarray(acts), jnp.asarray(poss), jnp.asarray(resets))
         if mflag is not None:
             args = args + (jnp.asarray(
                 _pad2(mflag, Sp, W).astype(np.uint32).reshape(NC, K, W)),)
-        syms = run(*args)
+        syms = span.wait_for(run(*args))
     out = np.asarray(syms)[:S]
     mask = np.arange(S)[:, None] < counts[None, :]
     return np.where(mask, out, np.uint8(0))
@@ -907,10 +831,10 @@ def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
         dpad = np.zeros(Dp, dtype=np.uint8)
         dpad[: len(data)] = data
     data_dev = jax.device_put(dpad)
-    with trace("sfq.encode.pack_pair"):
-        seq_syms, qual_syms = pack_jax.pack_pair_device(
+    with trace("sfq.encode.pack_pair") as span:
+        seq_syms, qual_syms = span.wait_for(pack_jax.pack_pair_device(
             data_dev, seq_offs, qual_offs, lengths, W, Sp, seq_map,
-            qual_bias)
+            qual_bias))
     Rpl = max(ll_mat.shape[0], 1)
     ll = np.zeros((Rpl, W), dtype=np.int32)
     ll[: ll_mat.shape[0]] = ll_mat
@@ -924,24 +848,17 @@ def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
         use_mf = name == "SEQ" and seq_mflag is not None
         sched = _build_schedule_ll(kind, geom, Sp, S, W, Rpl,
                                    with_mflag=use_mf)
-        with trace(f"sfq.encode.{kind}.schedule"):
+        with trace(f"sfq.encode.{kind}.schedule") as span:
             args = (syms, ll_dev, counts_dev)
             if use_mf:
                 args = args + (jnp.asarray(_pad2(seq_mflag, Sp, W)),)
-            idx_c, bit_c = sched(*args)
+            idx_c, bit_c = span.wait_for(sched(*args))
         for hard in (False, True):
             run = _build_encode(kind, geom, Sp, W, hard)
-            with trace(f"sfq.encode.{kind}.coder"):
-                ebufs, eptrs, low, emax = run(idx_c, bit_c)
-            CB = _chunk_bytes(geom.depth, hard)
-            if int(emax) <= CB:
-                if _use_device_compact(W):
-                    out[name] = _compact_device_path(ebufs, eptrs, low,
-                                                     counts, CB)
-                else:
-                    out[name] = _compact_host(np.asarray(ebufs),
-                                              np.asarray(eptrs),
-                                              np.asarray(low), counts, CB)
+            with trace(f"sfq.encode.{kind}.coder") as span:
+                ebufs, eptrs, low, emax = span.wait_for(run(idx_c, bit_c))
+            if int(emax) <= _chunk_bytes(geom.depth, hard):
+                out[name] = _compact(ebufs, eptrs, low, counts)
                 break
         else:
             raise AssertionError(
@@ -986,17 +903,17 @@ def decode_seq_qual_raw(seq_geom, qual_geom,
         use_mf = kind == "seq" and seq_mflag is not None
         run = _build_decode_ll(kind, geom, Sp, S, W, Rpl, Lw,
                                with_mflag=use_mf)
-        with trace(f"sfq.decode.{kind}.coder"):
+        with trace(f"sfq.decode.{kind}.coder") as span:
             args = (jnp.asarray(words), jnp.asarray(lens.astype(np.int32)),
                     ll_dev, counts_dev)
             if use_mf:
                 args = args + (jnp.asarray(
                     np.ascontiguousarray(seq_mflag)),)
-            dev_syms.append(run(*args))
-    with trace("sfq.decode.unpack_pair"):
-        seq_flat, qual_flat = pack_jax.unpack_pair_device(
+            dev_syms.append(span.wait_for(run(*args)))
+    with trace("sfq.decode.unpack_pair") as span:
+        seq_flat, qual_flat = span.wait_for(pack_jax.unpack_pair_device(
             dev_syms[0], dev_syms[1], rec_starts, lengths, W, total,
-            seq_map, qual_bias)
+            seq_map, qual_bias))
     # both are read-only views: SEQX exception runs are patched into the
     # assembled FASTQ output (native.fastq_assemble), never into these
     # buffers — saves two ~6.5 MB copies per block

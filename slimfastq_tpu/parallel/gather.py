@@ -8,20 +8,14 @@ lengths, then all_gathers the padded payload rows, and host 0 trims each
 row to its gathered length and concatenates in mesh order — the ordered
 gather that would feed the writing host on a pod slice.
 
-This module exists to exercise the REAL XLA collective (round-2 VERDICT
-missing #3): `ragged_all_gather` lowers to `all-gather` HLO over the
-mesh axis (asserted by tests/test_gather.py on the 8-device virtual
-mesh). Production trade-off, measured (tools/gather_tradeoff.py on the
-8-device virtual mesh, 8 x 2 MB container shards, min-of-5; recorded in
-BASELINE.md): host merge_containers 8.2 ms with zero device memory vs
-the collective at 41.2 ms including the h2d placement, or 15.0 ms
-collective + 6.0 ms host trim when the shards already live on the
-devices — and the gathered payload lands REPLICATED on every device
-(D x payload HBM: 16.2 MB here for a 2 MB-per-shard gather). So the
-collective only wins when the shards originate ON the devices and ICI
-beats the hosts' interconnect. The container writer keeps the host
-merge as default; this path is the drop-in for device-resident
-payloads.
+This module exercises the real XLA collective: `ragged_all_gather`
+lowers to `all-gather` HLO over the mesh axis (asserted by
+tests/test_gather.py on the 8-device virtual mesh). The gathered payload
+lands replicated on every device (D x payload device memory), so the
+collective only pays when the shards already live on the devices and the
+device interconnect beats the host path. The container writer keeps the
+host merge (`multihost.merge_containers`) as default; this path is the
+drop-in for device-resident payloads.
 """
 
 from __future__ import annotations

@@ -89,6 +89,18 @@ def _build_sharded_decode(kind: str, geom, S: int, W: int, Lw: int,
     return sharded
 
 
+def _block_views(arr) -> list:
+    """Per-block device arrays of a [B, ...] array, each left on the
+    device that holds its block (so compaction runs where the block
+    was coded)."""
+    views: list = [None] * arr.shape[0]
+    for shard in arr.addressable_shards:
+        start = shard.index[0].start or 0
+        for j in range(shard.data.shape[0]):
+            views[start + j] = shard.data[j]
+    return views
+
+
 def _pad_blocks(arrs: list[np.ndarray], n: int) -> int:
     """Number of dummy blocks needed so B divides the mesh size."""
     B = len(arrs)
@@ -149,23 +161,18 @@ def encode_stream_blocks(kind: str, geom, mesh: Mesh,
             r = reset_list[b]
             resets[b, : r.shape[0]] = r
 
-    results = None
     for hard in (False, True):
         fn = _build_sharded_encode(kind, geom, Sp, W, hard, mesh)
         ebufs, eptrs, low, emax = fn(jnp.asarray(syms), jnp.asarray(poss),
                                      jnp.asarray(resets),
                                      jnp.asarray(counts))
-        CB = streams_jax._chunk_bytes(geom.depth, hard)
-        if int(np.asarray(emax).max()) <= CB:
-            ebufs = np.asarray(ebufs)
-            eptrs = np.asarray(eptrs)
+        if int(np.asarray(emax).max()) <= streams_jax._chunk_bytes(
+                geom.depth, hard):
+            ebufs, eptrs = _block_views(ebufs), _block_views(eptrs)
             low = np.asarray(low)
-            results = []
-            for b in range(B):
-                payload, lens = streams_jax._compact_host(
-                    ebufs[b], eptrs[b], low[b], counts_list[b], CB)
-                results.append((payload, lens))
-            return results
+            return [streams_jax._compact(ebufs[b], eptrs[b], low[b],
+                                         counts_list[b])
+                    for b in range(B)]
     raise AssertionError("encode chunk overflow even with hard buffers")
 
 
@@ -206,10 +213,10 @@ def _build_sharded_raw_encode(seq_geom, qual_geom, Sp: int, S: int,
         if mesh is None:
             return es, ps, ls, ms.max(), eq, pq, lq, mq.max()
         spec = NamedSharding(mesh, P("blocks"))
-        return (jax.lax.with_sharding_constraint(es, spec), ps, ls,
-                ms.max(),
-                jax.lax.with_sharding_constraint(eq, spec), pq, lq,
-                mq.max())
+        return (jax.lax.with_sharding_constraint(es, spec),
+                jax.lax.with_sharding_constraint(ps, spec), ls, ms.max(),
+                jax.lax.with_sharding_constraint(eq, spec),
+                jax.lax.with_sharding_constraint(pq, spec), lq, mq.max())
 
     return sharded
 
@@ -280,15 +287,15 @@ def encode_seq_qual_raw_blocks(sgeom_list, mesh: Mesh, raw_list,
             CB_q = streams_jax._chunk_bytes(qgeom.depth, hard)
             if int(np.asarray(ms).max()) <= CB_s and \
                     int(np.asarray(mq).max()) <= CB_q:
-                es, ps, ls = np.asarray(es), np.asarray(ps), np.asarray(ls)
-                eq, pq, lq = np.asarray(eq), np.asarray(pq), np.asarray(lq)
+                es, ps = _block_views(es), _block_views(ps)
+                eq, pq = _block_views(eq), _block_views(pq)
+                ls, lq = np.asarray(ls), np.asarray(lq)
                 for i, b in enumerate(idxs):
                     cb = np.asarray(counts_list[b])
                     results[b] = {
-                        "SEQ": streams_jax._compact_host(
-                            es[i], ps[i], ls[i], cb, CB_s),
-                        "QUAL": streams_jax._compact_host(
-                            eq[i], pq[i], lq[i], cb, CB_q)}
+                        "SEQ": streams_jax._compact(es[i], ps[i], ls[i], cb),
+                        "QUAL": streams_jax._compact(eq[i], pq[i], lq[i],
+                                                     cb)}
                 break
         else:
             raise AssertionError(

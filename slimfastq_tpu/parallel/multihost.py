@@ -1,4 +1,4 @@
-"""Multi-host pod-slice support (BASELINE.json config #5).
+"""Multi-host support (BASELINE.json config #5).
 
 Blocks are fully independent (own adaptive state, delta chains reset per
 block — see pipeline.py), so the multi-host strategy is embarrassingly
@@ -67,8 +67,7 @@ def initialize(coordinator_address: str | None = None,
         return
     import os
     auto = any(k in os.environ for k in
-               ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"))
+               ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"))
     if not auto:
         return  # single-process run: nothing to initialise
     jax.distributed.initialize()

@@ -1,7 +1,7 @@
 """Block assembly + per-block encode/decode orchestration.
 
 A *block* is a fixed-record-count, independently decodable unit — the
-TPU-native replacement for slimfastq's single serial stream (SURVEY.md §2
+block-parallel replacement for slimfastq's single serial stream (SURVEY.md §2
 "Container": per-block model state is what makes data-parallel encode/decode
 and the multi-host ordered gather possible).
 
@@ -115,8 +115,8 @@ def _to_lane_streams_perlane(per_lane: list, Wa: int):
 
 def _lane_lengths_matrix(lengths: np.ndarray, W: int) -> np.ndarray:
     """[Rpl, W] per-lane record lengths, 0-padded. Record r lands at
-    (r // W, r % W), which flattens to index r — a pad + reshape (the
-    2-D fancy-index scatter this replaces cost ~0.6 ms at 64k)."""
+    (r // W, r % W), which flattens to index r — a pad + reshape (in
+    place of a 2-D fancy-index scatter)."""
     n = len(lengths)
     Rpl = (n + W - 1) // W if n else 0
     mat = np.zeros((Rpl, W), dtype=np.int64)

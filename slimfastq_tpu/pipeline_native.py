@@ -29,7 +29,7 @@ _CODE_TO_BASE_FULL = _CODE_TO_BASE[np.arange(256) & 3].astype(np.uint8)
 
 def _group_order(n: int, W: int) -> np.ndarray:
     """Stable grouping of records by lane (record r -> lane r % W);
-    closed form (an argsort here cost ~1.3 ms at 64k records)."""
+    closed form, cheaper than an argsort."""
     if n == 0:
         return np.zeros(0, dtype=np.int64)
     Rpl = (n + W - 1) // W
@@ -41,7 +41,7 @@ def _group_order(n: int, W: int) -> np.ndarray:
 def _lanes_to_mat(lanes_b, Wa: int):
     """Per-lane byte buffers -> ([S, Wa] u8 matrix, counts). Row-major
     fill (contiguous memcpy per lane) + one blocked C++ transpose — the
-    column-strided fill this replaces cost ~3.4 ms per stream."""
+    column-strided fill this replaces was slower."""
     counts = np.array([len(b) for b in lanes_b], dtype=np.int64)
     S = int(counts.max()) if counts.size else 0
     if S == 0:
@@ -93,7 +93,7 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
             "plus_len": np.ascontiguousarray(plus_len)}
     flags, dl, xl = native.ids_encode(data, bidx, n, Wa, prev_step)
     # FLAG stream: 3 symbols per record, lane-grouped (row-major fill +
-    # one transpose; the int64 fancy-index reorder here cost ~4.3 ms)
+    # one transpose, in place of an int64 fancy-index reorder)
     f3 = flags.reshape(n, 3)
     rec_per_lane = ((n - np.arange(Wa) + Wa - 1) // Wa
                     if n else np.zeros(Wa, dtype=np.int64))
@@ -159,8 +159,8 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                 and n > M.MATCH_CHUNK:
             if native.has_matcher():
                 # production representation: (ref, orient, v, score)
-                # arrays end to end — the per-read tuple list cost
-                # ~50 ms/64k block in Python object churn (round 5)
+                # arrays end to end — the per-read tuple list costs
+                # Python object churn per read
                 m_arrs = native.match_find_arrays(
                     data, seq_off, lengths, min(M.THRESHOLDS))
                 extra["matches"] = m_arrs if bool((m_arrs[0] >= 0).any()) \
@@ -277,8 +277,8 @@ def _match_trials(pre_jobs_extra, data, idx, lo, hi, cfg,
             los, his = _match_span_bounds(
                 (recs, refs[recs], orients[recs], vs[recs]), lengths)
             # fused C++ flag build (bit-identical to the span-diff /
-            # cumsum / pack_lanes chain, which cost ~60-80 ms per 64k
-            # block inside the pipeline — measured, tools/profile_wall)
+            # cumsum / pack_lanes chain, which was slow inside the
+            # pipeline)
             mflag = native.match_mflag(recs, los, his, lengths,
                                        cfg.lanes, S)
         else:
@@ -346,8 +346,8 @@ def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
         sl = slice(lo, hi)
         lengths = idx["seq_len"][sl].astype(np.int64)
         span = end - base
-        # np.empty + tail-only zero: a full np.zeros pass cost ~1 ms on
-        # a 16 MB block for bytes that are immediately overwritten
+        # np.empty + tail-only zero: a full np.zeros pass would write a
+        # 16 MB block of bytes that are immediately overwritten
         dpad = np.empty(pack_jax.pad_flat(span), dtype=np.uint8)
         dpad[:span] = data[base:end]
         dpad[span:] = 0

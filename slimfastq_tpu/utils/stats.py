@@ -5,9 +5,10 @@ the CLI, tests and dashboards)."""
 
 from __future__ import annotations
 
+import contextvars
 import io
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 
@@ -66,20 +67,63 @@ class Counters:
         }
 
 
+_SPAN_SECONDS: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "sfq_span_seconds", default=None)
+
+
+class Span:
+    """Handle yielded by ``trace``. ``wait_for(result)`` names the device
+    arrays the span stands for and returns them unchanged; only while
+    ``record_spans`` is active does the span wait for them before it
+    ends, so its seconds cover the device work, not just the dispatch."""
+
+    __slots__ = ("result",)
+
+    def __init__(self):
+        self.result = None
+
+    def wait_for(self, result):
+        self.result = result
+        return result
+
+
+@contextmanager
+def record_spans():
+    """Collect {span name: [count, seconds]} for every ``trace`` span
+    entered in this context (the device stage of the api pipelines runs
+    on the calling thread)."""
+    sink: dict = {}
+    token = _SPAN_SECONDS.set(sink)
+    try:
+        yield sink
+    finally:
+        _SPAN_SECONDS.reset(token)
+
+
 @contextmanager
 def trace(name: str):
     """jax.profiler annotation (no-op when profiling is off) so device
-    traces show codec stages (SURVEY.md §5 "Tracing/profiling").
+    traces show codec stages (SURVEY.md §5 "Tracing/profiling"); yields a
+    ``Span``. Under ``record_spans`` it also records the span's seconds.
 
     NOTE: only the *import/annotation setup* is allowed to fail silently;
     exceptions raised by the body must propagate (a previous version
     caught them and double-yielded, masking every kernel error as
     "generator didn't stop after throw()")."""
+    sink = _SPAN_SECONDS.get()
+    span = Span()
     try:
         from jax.profiler import TraceAnnotation
         ann = TraceAnnotation(name)
     except Exception:
-        yield
-        return
+        ann = nullcontext()
+    t0 = time.perf_counter()
     with ann:
-        yield
+        yield span
+        if sink is not None and span.result is not None:
+            import jax
+            jax.block_until_ready(span.result)
+    if sink is not None:
+        rec = sink.setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += time.perf_counter() - t0

@@ -1,6 +1,6 @@
-"""XLA whole-array emission compaction (ops/compact_xla — the round-3
-device default; replaced the Pallas kernel, measured 0.06-0.13 ms vs
-0.94-0.96 ms per stream at production shape on v5e)."""
+"""XLA whole-array emission compaction (ops/compact_xla), the only
+compaction path: the coder's dense per-chunk emission buffers become
+per-lane byte streams on the device."""
 
 import numpy as np
 import pytest
@@ -42,13 +42,48 @@ def test_compact_xla_int32_input_and_all_empty():
     assert np.asarray(out).shape == (W, 64)
 
 
-def test_device_compact_full_encode_path_identical(monkeypatch):
-    """The REAL device-compaction path (encode_stream_ll ->
-    _compact_device_path -> compact_device_impl -> _flush_append) must be
-    byte-identical to the host compactor — the gate is monkeypatched open
-    because it is TPU-only in production."""
-    from slimfastq_tpu.config import config_for_level
+@pytest.mark.parametrize("hard", [False, True],
+                         ids=["optimistic", "hard"])
+def test_compaction_matches_reference_at_production_width(hard):
+    """streams_jax._compact at W=1024 with the coder's chunk bound equals
+    compact_host_reference plus the coder's four flush bytes per active
+    lane."""
+    from slimfastq_tpu.ops import ranger_np as R
     from slimfastq_tpu.ops import streams_jax
+
+    rng = np.random.default_rng(11 + hard)
+    W, NC, depth = 1024, 6, 6
+    CB = streams_jax._chunk_bytes(depth, hard)
+    bound = 3 * streams_jax._CHUNK_SYMS * depth if hard else CB
+    eptrs = rng.integers(0, min(bound, CB) + 1,
+                         size=(NC, W)).astype(np.int32)
+    eptrs[rng.random((NC, W)) < 0.2] = 0
+    ebufs = rng.integers(0, 256, size=(NC, W * CB)).astype(np.uint8)
+    low = rng.integers(0, 1 << 32, size=W, dtype=np.uint64) \
+        .astype(np.uint32)
+    counts = rng.integers(0, 5, size=W)
+    counts[:3] = 0                         # lanes with nothing to code
+    pay, lens = streams_jax._compact(jnp.asarray(ebufs), jnp.asarray(eptrs),
+                                     jnp.asarray(low), counts)
+    ref, totals = CX.compact_host_reference(ebufs, eptrs,
+                                            int(eptrs.sum(0).max()))
+    act = counts > 0
+    assert np.array_equal(lens, np.where(act, totals + R.FLUSH_BYTES, 0))
+    for w in range(W):
+        if not act[w]:
+            continue
+        t = int(totals[w])
+        flush = [(int(low[w]) >> (24 - 8 * j)) & 0xFF
+                 for j in range(R.FLUSH_BYTES)]
+        assert np.array_equal(pay[w, :t], ref[w, :t]), f"lane {w}"
+        assert list(pay[w, t:t + R.FLUSH_BYTES]) == flush, f"lane {w}"
+
+
+def test_device_compact_full_encode_path_identical():
+    """The encode path (encode_stream_ll -> _compact) reproduces the
+    NumPy oracle's payload and lane lengths."""
+    from slimfastq_tpu.config import config_for_level
+    from slimfastq_tpu.ops import streams_jax, streams_np
     from slimfastq_tpu.pipeline import _lane_lengths_matrix
 
     rng = np.random.default_rng(3)
@@ -65,11 +100,10 @@ def test_device_compact_full_encode_path_identical(monkeypatch):
         syms[offs[w]: offs[w] + L, w] = rng.integers(0, 64, L)
         offs[w] += L
 
-    p_host, l_host = streams_jax.encode_stream_ll("qual", cfg.qual, syms,
-                                                  ll, counts)
-    monkeypatch.setattr(streams_jax, "_use_device_compact",
-                        lambda W: W % 8 == 0)
     p_dev, l_dev = streams_jax.encode_stream_ll("qual", cfg.qual, syms,
                                                 ll, counts)
-    assert np.array_equal(l_host, l_dev)
-    assert np.array_equal(p_host, p_dev)
+    pos, reset = streams_np.build_pos_reset(ll, S)
+    p_ref, l_ref = streams_np.encode_stream("qual", cfg.qual, syms, counts,
+                                            pos=pos, reset=reset)
+    assert np.array_equal(l_ref, l_dev)
+    assert np.array_equal(p_ref[:, :p_dev.shape[1]], p_dev)

@@ -183,8 +183,6 @@ def test_hard_buffer_variant_identical(cfg):
         ebufs, eptrs, low, emax = run(*sc)
         CB = streams_jax._chunk_bytes(cfg.qual.depth, hard)
         assert int(emax) <= CB
-        outs[hard] = streams_jax._compact_host(
-            np.asarray(ebufs), np.asarray(eptrs), np.asarray(low),
-            counts, CB)
+        outs[hard] = streams_jax._compact(ebufs, eptrs, low, counts)
     assert np.array_equal(outs[False][1], outs[True][1])
     assert np.array_equal(outs[False][0], outs[True][0])

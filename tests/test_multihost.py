@@ -79,3 +79,21 @@ def test_streaming_resume(tmp_path):
     dst.write_bytes(full[: offs[2]])
     encode_file_streaming(str(src), str(dst), level=3, resume=True, **CFG)
     assert dst.read_bytes() == full
+
+
+def test_initialize_ignores_tpu_env_keys(monkeypatch):
+    """Only coordinator keys trigger auto-initialisation; TPU runtime
+    keys (TPU_WORKER_HOSTNAMES, MEGASCALE_COORDINATOR_ADDRESS) do not."""
+    import jax
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-a,host-b")
+    monkeypatch.setenv("MEGASCALE_COORDINATOR_ADDRESS", "host-a:8080")
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda *a, **k: calls.append((a, k)))
+    multihost.initialize()
+    assert calls == []
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
+    multihost.initialize()
+    assert len(calls) == 1
